@@ -7,7 +7,7 @@ DelaySpectrumToPowerSpectrum:1061, DelayPowerSpectrumBase:1114,
 DelayPowerSpectrumGibbs:1218, DelayPowerSpectrumNRML:1270,
 DelayCrossPowerSpectrumEstimator:1304).
 
-TPU design: when the retained frequency mask is uniform across baselines
+Device design: when the retained frequency mask is uniform across baselines
 (the common case after MaskFreq-style flagging) the Gibbs chains of every
 baseline advance together in a single batched device kernel
 (:func:`draco_tpu.ops.delay.delay_power_spectrum_gibbs_batched`); ragged
@@ -728,7 +728,7 @@ def _batch_cut_masks(wmask, time_frac, freq_frac):
 class DelayPowerSpectrumGibbsBatched(DelayPowerSpectrumGibbs):
     """Batched-Gibbs power spectrum: all chains advance on device together.
 
-    The TPU-native fast path: requires the retained frequency mask to be
+    The device fast path: requires the retained frequency mask to be
     identical across baselines (which per-baseline trimming would
     otherwise vary); baselines failing that fall back to the per-baseline
     sampler of the parent class.
@@ -950,7 +950,7 @@ class DelayCrossPowerSpectrumEstimator(DelayPowerSpectrumGibbs):
 class DelayCrossPowerSpectrumEstimatorBatched(DelayCrossPowerSpectrumEstimator):
     """Batched cross-PS Gibbs: all baselines' chains advance on device.
 
-    The TPU-native fast path for the cross estimator, mirroring
+    The device fast path for the cross estimator, mirroring
     :class:`DelayPowerSpectrumGibbsBatched`: baselines whose retained
     frequency mask equals the batch union run as one batched device
     chain (chunked complex Cholesky over the coupled ``nd*N`` system);

@@ -1,7 +1,7 @@
 """System-sensitivity estimation, built as device einsums.
 
 Re-designs reference ``draco/analysis/sensitivity.py``
-(ComputeSystemSensitivity:11-261) for TPU: the reference walks python
+(ComputeSystemSensitivity:11-261) for the device: the reference walks python
 loops over polarisation groups and a double loop over autocorrelation
 pairs; here each polarisation group is a row of a membership matrix and
 the radiometric auto x auto outer product is a single

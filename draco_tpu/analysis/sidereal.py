@@ -5,7 +5,7 @@ SiderealRegridder:160 with GP:281/nearest:362/linear:386/cubic:464 variants,
 SiderealRebinner:550, RebinGradientCorrection:734, SiderealStacker:834,
 SiderealStackerMatch:1082).
 
-TPU notes: the Lanczos regrid runs on the batched banded-Wiener kernel
+Device notes: the Lanczos regrid runs on the batched banded-Wiener kernel
 (ops.banded); the interpolation variants are fully vectorised gathers; the
 streaming stacker keeps the West (1979) update (reference
 sidereal.py:986-1015) with device-side arithmetic.

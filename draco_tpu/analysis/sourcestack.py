@@ -1,6 +1,6 @@
 """Stacking formed beams over catalog sources in frequency offset.
 
-TPU-native re-design of reference ``draco/analysis/sourcestack.py``
+JAX re-design of reference ``draco/analysis/sourcestack.py``
 (SourceStack:17, RandomSubset:214, GroupSourceStacks:332).  The
 reference accumulates one ``np.bincount`` per polarisation on host;
 here every (source, frequency-channel) contribution is routed through a

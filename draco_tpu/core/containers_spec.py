@@ -2,7 +2,7 @@
 
 Re-provides all 74 typed containers of the reference framework (class list
 at reference ``draco/core/containers.py:470-3409``; see SURVEY.md section
-2.1) on top of the TPU-native :class:`~draco_tpu.core.containers.ContainerBase`.
+2.1) on top of the device-backed :class:`~draco_tpu.core.containers.ContainerBase`.
 Axis layouts, dtypes and distributed axes follow the reference specs so that
 on-disk data and pipeline configs translate directly.
 """

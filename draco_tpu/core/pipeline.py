@@ -25,12 +25,11 @@ task cycling with :class:`PipelineStopIteration` retiring tasks.
 from __future__ import annotations
 
 import importlib
+import json
 import logging
 import os
 from collections import deque
 from typing import Any
-
-import yaml
 
 from . import config as config_mod
 from ..parallel import mesh as pmesh
@@ -149,10 +148,12 @@ class Manager(config_mod.Reader):
                 f"(got {type(config_dict).__name__}: empty file?)"
             )
         self.config_dict = config_dict
+        # provenance text written with products; a dict-built config is
+        # recorded as JSON, which YAML parsers read unchanged
         self.config_yaml = (
             config_yaml
             if config_yaml is not None
-            else yaml.safe_dump(config_dict, sort_keys=False)
+            else json.dumps(config_dict, indent=2, default=str)
         )
         pipeline_cfg = config_dict.get("pipeline")
         if pipeline_cfg is None:
@@ -164,8 +165,8 @@ class Manager(config_mod.Reader):
         # `cluster:` — the reference YAML's batch-queue block (caput's
         # job-script generation; reference examples/test.yaml:2-7).
         # Semantics here: `python -m draco_tpu queue config.yaml` turns
-        # it into a SLURM script that launches ONE process per TPU host
-        # (ranks come from the launcher env, chips from the local
+        # it into a SLURM script that launches ONE process per host
+        # (ranks come from the launcher env, GPUs from the local
         # backend); a plain `run` ignores it.  See docs/migration.md.
         self.cluster = config_dict.get("cluster") or {}
         self.versions = self._collect_versions(
@@ -206,7 +207,7 @@ class Manager(config_mod.Reader):
         #   pipeline:
         #     mesh:
         #       axes: {freq: 2, m: -1}   # -1 fills remaining devices
-        #       dcn: {freq: 2}           # optional multi-slice factor
+        #       dcn: {freq: 2}           # optional between-host factor
         #
         # Shorthand `mesh: {freq: 2, m: 4}` (no `axes` key) also works.
         self.mesh_cfg = self._parse_mesh_cfg(pipeline_cfg.get("mesh"))
@@ -266,7 +267,7 @@ class Manager(config_mod.Reader):
             if not isinstance(dcn, dict):
                 raise config_mod.ConfigError(
                     "pipeline.mesh.dcn must be a mapping of axis name "
-                    f"to multi-slice factor, got {dcn!r}"
+                    f"to between-host factor, got {dcn!r}"
                 )
             for name, fac in dcn.items():
                 if name not in axes:
@@ -337,10 +338,14 @@ class Manager(config_mod.Reader):
     # -- constructors --------------------------------------------------------
     @classmethod
     def from_yaml_str(cls, yaml_str: str) -> "Manager":
+        import yaml
+
         return cls(yaml.safe_load(yaml_str), config_yaml=yaml_str)
 
     @classmethod
     def from_yaml_file(cls, path: str) -> "Manager":
+        import yaml
+
         with open(path) as f:
             text = f.read()
         return cls(yaml.safe_load(text), config_yaml=text)
@@ -433,12 +438,12 @@ class Manager(config_mod.Reader):
     def jobscript(self, config_path: str) -> str:
         """Render the ``cluster:`` stanza as a SLURM pod-launch script.
 
-        The TPU-native mapping of caput's batch-queue generation: one
+        The JAX mapping of caput's batch-queue generation: one
         process per host (``nodes``), ranks wired through the
         ``DRACO_TPU_{COORDINATOR,NUM_PROCESSES,PROCESS_ID}`` launcher
         contract (see :mod:`draco_tpu.parallel.multihost`).  ``ppn`` is
         accepted for config compatibility but does not multiply
-        processes — each host process drives ALL its local TPU chips,
+        processes — each host process drives ALL its local GPUs,
         so the reference's ranks-per-node knob has no analogue.
         """
         import shlex
@@ -469,7 +474,7 @@ class Manager(config_mod.Reader):
             lines.append(f"#SBATCH --chdir={shlex.quote(str(workdir))}")
         lines += [
             "",
-            "# one process per TPU host; chips come from the local backend",
+            "# one process per host; GPUs come from the local backend",
         ]
         if c.get("venv"):
             lines.append(f"source {shlex.quote(str(c['venv']))}/bin/activate")
@@ -739,7 +744,7 @@ def main(argv=None):
     parser.add_argument(
         "--platform",
         default=None,
-        help="force a JAX platform (cpu/tpu), e.g. for host-only product "
+        help="force a JAX platform (cpu/gpu), e.g. for host-only product "
         "generation",
     )
     sub = parser.add_subparsers(dest="command", required=True)
@@ -814,19 +819,11 @@ def main(argv=None):
 
     if args.command in ("run", "verify", "makeproducts", "makesky"):
         # Persistent XLA compilation cache: the big fused programs cost
-        # minutes to compile (especially over remote-TPU tunnels), and a
-        # production pipeline recompiles nothing on its second launch.
-        # JAX_CACHE_DIR overrides; empty disables.
-        import os as _os
+        # minutes to compile, and a production pipeline recompiles
+        # nothing on its second launch.
+        from .. import enable_compile_cache
 
-        cache_dir = _os.environ.get(
-            "JAX_CACHE_DIR", _os.path.expanduser("~/.cache/draco_tpu_xla")
-        )
-        if cache_dir:
-            import jax
-
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        enable_compile_cache()
 
     if args.command == "run":
         # Multi-process launches configure DRACO_TPU_COORDINATOR /

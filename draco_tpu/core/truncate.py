@@ -12,7 +12,7 @@ cost.
 
 This is an I/O-time transform, so it runs as vectorised numpy bit
 manipulation on the host — there is no reason to ship data back to the
-TPU to round mantissas on the way to disk.
+device to round mantissas on the way to disk.
 
 Semantics
 ---------

@@ -1,6 +1,6 @@
 /* Native host kernels for draco_tpu.
  *
- * The TPU compute path lives in XLA/Pallas; these are the host-bound
+ * The device compute path lives in XLA; these are the host-bound
  * kernels that the reference implemented in OpenMP Cython
  * (draco/util/_fast_tools.pyx) and caput's median module, and that have no
  * efficient device formulation: order statistics over sliding windows.

@@ -1,6 +1,6 @@
 """Random sampling: complex normals and complex Wishart matrices.
 
-TPU-PRNG re-design of reference ``draco/util/random.py``: the Bartlett
+JAX-PRNG re-design of reference ``draco/util/random.py``: the Bartlett
 decomposition of the Wishart draw (reference random.py:106-137) is fully
 vectorised over batch dimensions — per (freq, time) sample-covariance draws
 become one batched kernel instead of a Python loop (the SampleNoise hot

@@ -25,17 +25,13 @@ __all__ = [
 ]
 
 
-def band_wiener(R, Ni, Si, y, bw: int, use_pallas: bool | None = None):
+def band_wiener(R, Ni, Si, y, bw: int):
     """Banded Wiener filter: solve (R N^-1 R^T + S^-1) x = R N^-1 y.
 
     Semantics match reference regrid.band_wiener (regrid.py:14-88):
     the returned noise weight is diag(R N^-1 R^T) *without* the signal
     contribution.  Batched over the leading axis of ``Ni``/``y`` as one
     device computation.
-
-    On TPU the banded covariance build uses the single-HBM-pass Pallas
-    kernel (:func:`draco_tpu.ops.pallas_kernels.banded_covariance_pallas`)
-    when the transfer matrix is real; set ``use_pallas`` to override.
 
     Parameters
     ----------
@@ -65,29 +61,9 @@ def band_wiener(R, Ni, Si, y, bw: int, use_pallas: bool | None = None):
     y = jnp.atleast_2d(jnp.asarray(y))
     Si = jnp.asarray(Si)
 
-    if use_pallas is None:
-        use_pallas = (
-            jax.default_backend() == "tpu" and not jnp.iscomplexobj(R)
-        )
-
     # Dirty estimate
     yN = y * Ni
     xh_dirty = yN @ R.T  # [k, m]
-
-    if use_pallas:
-        from .pallas_kernels import banded_covariance_pallas
-
-        ab_all = banded_covariance_pallas(R, Ni, bw)  # [k, bw+1, m] f32
-        ab_all = ab_all.astype(R.dtype)
-
-        def one(ab, d_k):
-            nw = ab[0]
-            abS = ab.at[0].add(Si)
-            xh = banded.solveh_banded_lower(abS, d_k, bw)
-            return xh, nw
-
-        xh, nw = jax.vmap(one)(ab_all, xh_dirty)
-        return xh, nw
 
     # Banded covariance per batch element: vmap the build over k
     def one(Ni_k, d_k):

@@ -1,6 +1,6 @@
 """On-device RFI excision: SumThreshold and the scale-invariant-rank operator.
 
-TPU-native re-design of the algorithms in reference ``draco/util/rfi.py``
+JAX re-design of the algorithms in reference ``draco/util/rfi.py``
 (sumthreshold_py:8, scale_invariant_rank:205, sir:260):
 
 * **SumThreshold** (Offringa et al., see the SumThreshold technical report)

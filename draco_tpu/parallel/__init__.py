@@ -3,7 +3,7 @@
 Replaces the reference stack's MPI backbone (caput.mpiarray.MPIArray and
 mpi4py collectives; see SURVEY.md section 2.5) with a JAX device mesh.  A
 container dataset's ``distributed_axis`` maps onto the mesh axis, and
-``redistribute`` is a resharding ``device_put`` (an ICI all-to-all under
+``redistribute`` is a resharding ``device_put`` (an all-to-all between devices under
 XLA) instead of an MPI all-to-all.
 """
 

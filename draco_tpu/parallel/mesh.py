@@ -7,7 +7,7 @@ all-to-all.  Here the equivalent is a 1-D (or multi-D) ``jax.sharding.Mesh``:
 a dataset distributed along axis ``i`` is a global ``jax.Array`` with a
 ``NamedSharding`` whose :class:`PartitionSpec` shards dim ``i`` over the mesh
 axis.  ``redistribute`` becomes a resharding ``device_put`` which XLA lowers
-to an ICI all-to-all.
+to an all-to-all between devices.
 
 If no mesh has been installed (single-device use, unit tests), everything is
 a no-op and arrays are ordinary single-device arrays.
@@ -78,23 +78,24 @@ def make_hybrid_mesh(
     axis_names: tuple[str, ...] = ("freq", "m"),
     devices=None,
 ) -> Mesh:
-    """Mesh spanning multiple TPU slices: DCN-parallel outer, ICI inner.
+    """Mesh spanning several hosts: between-host outer, in-host inner.
 
-    The multi-slice scale-out layout for the CHIME-scale problem
+    The multi-host scale-out layout for the CHIME-scale problem
     (BASELINE.json: 1024 frequencies): each mesh axis's global extent is
-    ``dcn_shape[i] * ici_shape[i]``, with the DCN factor outermost.
-    Put the **freq** axis on DCN — frequencies are embarrassingly
-    parallel through the whole m-mode spine (verified by the
-    freq-sharded SPMD tests), so the only cross-slice traffic is the
-    initial scatter and final gather, while the freq<->m parallel
+    ``dcn_shape[i] * ici_shape[i]``, with the between-host factor
+    (``dcn_shape``) outermost and the in-host factor (``ici_shape``)
+    innermost.  Put the **freq** axis between hosts — frequencies are
+    embarrassingly parallel through the whole m-mode spine (verified by
+    the freq-sharded SPMD tests), so the only between-host traffic is
+    the initial scatter and final gather, while the freq<->m parallel
     transposes (the all-to-alls of reference
-    draco/synthesis/stream.py:96,119) ride each slice's ICI.
+    draco/synthesis/stream.py:96,119) stay on each host's own links.
 
-    On real multi-slice hardware the device grid comes from
-    ``jax.experimental.mesh_utils.create_hybrid_device_mesh`` (which
-    reads each device's slice topology); on single-slice or virtual
-    (CPU-mesh test) platforms a contiguous block layout stands in so
-    the same program shapes compile and run anywhere.
+    Where devices report a ``slice_index`` the device grid comes from
+    ``jax.experimental.mesh_utils.create_hybrid_device_mesh``; otherwise
+    (one host of GPUs, or the virtual CPU-mesh test platform) a
+    contiguous block layout stands in so the same program shapes
+    compile and run anywhere.
     """
     if devices is None:
         devices = jax.devices()
@@ -118,8 +119,8 @@ def make_hybrid_mesh(
             ici_shape, dcn_shape, devices=devices
         )
     else:
-        # single slice / virtual platform: contiguous blocks, DCN factors
-        # outermost so each ICI block is a contiguous device range
+        # no slice topology: contiguous blocks, between-host factors
+        # outermost so each in-host block is a contiguous device range
         grid = np.asarray(devices).reshape(*dcn_shape, *ici_shape)
         n = len(ici_shape)
         # interleave (dcn_i, ici_i) per axis then merge the pairs
@@ -197,8 +198,8 @@ def _put(arr, sharding):
 def shard_array(arr, axis: int | None):
     """Reshard ``arr`` so dim ``axis`` is split across the mesh.
 
-    This is the TPU-native ``MPIArray.redistribute``: under a mesh the
-    ``device_put`` is an ICI all-to-all; with no mesh it is a no-op.  If the
+    This is the JAX ``MPIArray.redistribute``: under a mesh the
+    ``device_put`` is an all-to-all between devices; with no mesh it is a no-op.  If the
     axis length does not divide the mesh size the array is replicated
     instead (matching the reference's fallback of keeping data local).
     """

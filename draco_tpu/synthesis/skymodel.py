@@ -6,7 +6,7 @@ doc/tutorial.rst:78-119), which draco then consumes through
 ``draco.core.io.LoadMaps`` (reference draco/core/io.py:10).  This module
 re-provides that capability natively: frequency-correlated Gaussian
 realisations of foreground and 21 cm angular power spectra, drawn with the
-TPU PRNG and synthesised to HEALPix maps through the on-device SHT
+JAX PRNG and synthesised to HEALPix maps through the on-device SHT
 (:mod:`draco_tpu.ops.sht`) — per-l frequency covariances are factorised
 with one batched eigendecomposition and the alm draw is a single batched
 matmul, instead of cora's per-l host loop.

@@ -2,9 +2,9 @@
 
 The reference consumes these from the external ``driftscan`` package
 (``drift.core.telescope/beamtransfer/manager`` — usage catalogued in
-SURVEY.md section 1 L0).  Here they are rebuilt TPU-first: beam transfer
+SURVEY.md section 1 L0).  Here they are rebuilt device-first: beam transfer
 matrices are generated on device via the native SHT and stored as dense
-[l, m] tensors ready for batched MXU projections, and the per-m SVD/KL
+[l, m] tensors ready for batched GEMM projections, and the per-m SVD/KL
 products are computed with batched ``jax.lax.linalg`` factorizations.
 """
 

@@ -12,8 +12,6 @@ from __future__ import annotations
 import importlib
 import os
 
-import yaml
-
 from .beamtransfer import BeamTransfer
 from .core import TransitTelescope
 
@@ -102,6 +100,8 @@ class ProductManager:
         else:
             directory = os.path.dirname(config_path) or "."
             config_file = config_path
+        import yaml
+
         with open(config_file) as f:
             cfg = yaml.safe_load(f)
 

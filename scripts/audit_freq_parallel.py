@@ -1,8 +1,7 @@
 """Audit the collectives of the freq-sharded fused round trip.
 
-The north-star projection divides the measured per-frequency cost by 8
-chips, which is only valid if the freq-parallel program inserts no
-meaningful cross-device traffic.  This script compiles the production
+Projecting the per-frequency cost across devices is only valid if the
+freq-parallel program inserts no meaningful cross-device traffic.  This script compiles the production
 fused program on an 8-virtual-device CPU mesh with the sky sharded over
 frequency and counts the collective ops XLA inserted (all-to-all,
 all-gather, all-reduce, reduce-scatter, collective-permute) and their

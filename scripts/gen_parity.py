@@ -31,7 +31,7 @@ reference depends on (see README):
 - **cora** (sky): `ops/sht.py` (sphtrans_sky/inv), `ops/healpix.py`,
   `ops/cosmology.py`, `synthesis/skymodel.py` + the `makesky` CLI.
 - **Cython `_fast_tools`** (native kernels): `ops/{banded,tools,
-  interferometry,wavelet}.py`, `ops/pallas_kernels.py`, `native/` (C/OpenMP).
+  interferometry,wavelet}.py`, `native/` (C/OpenMP).
 
 | Reference symbol | draco_tpu location |
 |---|---|"""

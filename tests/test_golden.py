@@ -1,9 +1,10 @@
 """Golden accuracy test: the f32 device pipeline matches f64 truth.
 
-The BASELINE.json north star requires the TPU simulate->map round trip to
-match the CPU reference maps to 1e-5 relative error; here the f64 run of
-our own engine stands in as the reference and the f32 run (the TPU
-precision) is validated against it end to end on the full m-mode spine.
+The BASELINE.json north star requires the accelerator simulate->map round
+trip to match the CPU reference maps to 1e-5 relative error; here the f64
+run of our own engine stands in as the reference and the f32 run (the
+accelerator's precision) is validated against it end to end on the full
+m-mode spine.
 """
 
 import numpy as np

@@ -53,7 +53,7 @@ def test_fast_fft_size():
     assert mmode.fast_fft_size(1) == 1
     assert mmode.fast_fft_size(6) == 6
     assert mmode.fast_fft_size(7) == 8
-    assert mmode.fast_fft_size(1535) == 1536  # 2*767 + 1, the v5e bench mmax
+    assert mmode.fast_fft_size(1535) == 1536  # 2*767 + 1, the benchmark's mmax
     assert mmode.fast_fft_size(2049) == 2160  # 2^4 * 3^3 * 5
     for n in [1, 13, 100, 257, 1535, 4097]:
         s = mmode.fast_fft_size(n)

@@ -379,7 +379,7 @@ def test_yaml_mesh_config_installs_mesh():
 
     if len(jax.devices()) < 2:
         pytest.skip(
-            "fixed mesh axis sizes need >=2 devices; chip mode has one"
+            "fixed mesh axis sizes need >=2 devices"
         )
     from draco_tpu.parallel import get_mesh
 

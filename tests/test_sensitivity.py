@@ -176,11 +176,7 @@ def test_cwt_localises_tone():
 
     freqs = np.linspace(0.01, 0.2, 40)
     scales = wavelet_ops.frequency2scale(freqs)
-    from draco_tpu.ops.tools import device_to_numpy
-
-    # device_to_numpy, not np.asarray: the complex readback keeps this
-    # test runnable in DRACO_TPU_TEST_PLATFORM=tpu chip-smoke mode
-    W = device_to_numpy(wavelet_ops.cwt_morlet(x, scales))
+    W = np.asarray(wavelet_ops.cwt_morlet(x, scales))
     power = np.mean(np.abs(W[:, n // 4 : -n // 4]) ** 2, axis=-1)
     f_peak = freqs[np.argmax(power)]
     assert abs(f_peak - f_true) < 0.01

@@ -232,7 +232,7 @@ def test_hybrid_mesh_layout():
 
 
 class _FakeSliceDevice:
-    """A real CPU device masquerading as a member of a TPU slice.
+    """A real CPU device masquerading as a member of a multi-host slice.
 
     Forwards every attribute to the wrapped device but reports a
     configurable ``slice_index`` — enough for
